@@ -55,9 +55,11 @@ def test_c_tb_reader_decodes_band_layout():
             assert tb_at(i, j) == tb[i][j], (i, j)
 
 
-def test_cli_agreement_exit_zero(capsys):
+@pytest.mark.parametrize("cmp,says", [
+    ("c", "all agree"), ("c,device", "device DP: score and path agree")])
+def test_cli_agreement_exit_zero(capsys, cmp, says):
     rc = dp_trace_main(["--a", "ACGTACGTAC", "--b", "ACGTACCTAC",
-                        "--band", "3", "--cmp", "c"])
+                        "--band", "3", "--cmp", cmp])
     out = capsys.readouterr().out
     assert rc == 0
-    assert "all agree" in out
+    assert says in out

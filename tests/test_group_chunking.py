@@ -1,10 +1,9 @@
-"""FusedWaveAligner._group row-cap chunking: batches above
-USEARCH_DEV_NROWS_CAP rows must split into fixed-size chunks that all
-reuse ONE kernel geometry (each fresh (P, steps) bucket costs a full
-device compile), with per-pair results identical to the oracle."""
+"""WaveAligner launch chunking: a batch whose traceback tensor exceeds
+LAUNCH_TB_BYTES splits into launches of one shape (one compile), the
+tail padded with inert pairs, with per-pair results identical to the
+oracle."""
 
 import numpy as np
-import pytest
 
 from usearch12_tpu.align.oracle import band_diag_range, banded_nw
 from usearch12_tpu.ops import wavefront_nw as wnw
@@ -23,72 +22,37 @@ def _mk_pairs(rng, n, length):
     return pairs
 
 
+def _check(pairs, band, ap, scores, paths):
+    for i, (a, b) in enumerate(pairs):
+        d0, d1 = band_diag_range(len(a), len(b), band)
+        s0, p0 = banded_nw(a, b, d0, d1, ap)
+        assert paths[i] == p0, i
+        assert float(scores[i]) == s0, i
+
+
 def test_group_chunking_matches_oracle(monkeypatch):
-    monkeypatch.setenv("USEARCH_DEV_NROWS_CAP", "8")
+    # 64 letters x 9 lanes (W 8) = 576 bytes of traceback per pair: a
+    # 32-pair budget turns 130 pairs into 5 launches of 32
+    monkeypatch.setattr(wnw, "LAUNCH_TB_BYTES", 32 * 64 * 9)
     ap = AlnParams.from_cmdline(nucleo=True)
-    dev = wnw.WavefrontNWDevice(ap, pb=8, chunk=32, interpret=True,
-                                steps_quantum=64)
-    fa = wnw.FusedWaveAligner(dev)
-    rng = np.random.default_rng(17)
-    band = 8
-    pairs = _mk_pairs(rng, 130, 40)   # gpv=7 at SW=18 -> >2 chunks
-    n = len(pairs)
-    geo = np.zeros((n, 4), np.int32)
-    idx = ([], [])
-    for i, (a, b) in enumerate(pairs):
-        d0, d1 = band_diag_range(len(a), len(b), band)
-        geo[i] = (len(a), len(b), d0, d1 - d0 + 1)
-        idx[(len(a) - d0) % 2].append(i)
-    out_scores = np.zeros(n, np.float32)
-    out_paths = [None] * n
-    calls = []
-    orig = wnw.FusedWaveAligner._group
-
-    def spy(self, pairs_, idxs_, geo_, rho0_, nucleo_, os_, op_,
-            force_rows=None):
-        calls.append((len(idxs_), force_rows))
-        return orig(self, pairs_, idxs_, geo_, rho0_, nucleo_, os_, op_,
-                    force_rows=force_rows)
-
-    monkeypatch.setattr(wnw.FusedWaveAligner, "_group", spy)
-    for rho0 in (0, 1):
-        if idx[rho0]:
-            fa._group(pairs, idx[rho0], geo, rho0, True,
-                      out_scores, out_paths)
-    # the outer call split into chunks, every chunk pinned to cap rows
-    forced = [c for c in calls if c[1] is not None]
-    assert len(forced) >= 2
-    assert all(fr == 8 for _, fr in forced)
-    for i, (a, b) in enumerate(pairs):
-        d0, d1 = band_diag_range(len(a), len(b), band)
-        s0, p0 = banded_nw(a, b, d0, d1, ap)
-        assert out_paths[i] == p0, i
-        assert float(out_scores[i]) == s0, i
+    band = 4
+    pairs = _mk_pairs(np.random.default_rng(17), 130, 40)
+    wa = wnw.WaveAligner(ap)
+    shapes = [(L, P, W) for _i, L, P, W in
+              wa.plan(wa.geometry(pairs, band))]
+    assert shapes == [(64, 32, 8)] * 5
+    scores, paths = wa.align(pairs, band)
+    assert wa.launches == 5
+    _check(pairs, band, ap, scores, paths)
 
 
-def test_group_small_batch_unchunked(monkeypatch):
-    monkeypatch.setenv("USEARCH_DEV_NROWS_CAP", "512")
+def test_group_small_batch_unchunked():
     ap = AlnParams.from_cmdline(nucleo=True)
-    dev = wnw.WavefrontNWDevice(ap, pb=8, chunk=32, interpret=True,
-                                steps_quantum=64)
-    fa = wnw.FusedWaveAligner(dev)
-    rng = np.random.default_rng(5)
-    band = 8
-    pairs = _mk_pairs(rng, 6, 36)
-    n = len(pairs)
-    geo = np.zeros((n, 4), np.int32)
-    idx = ([], [])
-    for i, (a, b) in enumerate(pairs):
-        d0, d1 = band_diag_range(len(a), len(b), band)
-        geo[i] = (len(a), len(b), d0, d1 - d0 + 1)
-        idx[(len(a) - d0) % 2].append(i)
-    out_scores = np.zeros(n, np.float32)
-    out_paths = [None] * n
-    for rho0 in (0, 1):
-        if idx[rho0]:
-            fa._group(pairs, idx[rho0], geo, rho0, True,
-                      out_scores, out_paths)
-    for i, (a, b) in enumerate(pairs):
-        d0, d1 = band_diag_range(len(a), len(b), band)
-        s0, p0 = banded_nw(a, b, d0, d1, ap)
-        assert out_paths[i] == p0 and float(out_scores[i]) == s0
+    band = 4
+    pairs = _mk_pairs(np.random.default_rng(5), 6, 36)
+    wa = wnw.WaveAligner(ap)
+    (idx, L, P, W), = wa.plan(wa.geometry(pairs, band))
+    assert (len(idx), L, P, W) == (6, 64, 32, 8)
+    scores, paths = wa.align(pairs, band)
+    assert wa.launches == 1
+    _check(pairs, band, ap, scores, paths)

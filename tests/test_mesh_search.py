@@ -1,5 +1,5 @@
 """Mesh-sharded search semantics on the virtual 8-device CPU mesh:
-the device ranking (MXU counting + prefix-max SetTopBump + lexicographic
+the device ranking (matmul counting + prefix-max SetTopBump + lexicographic
 count-sort merge) must reproduce the host candidate lists exactly, and
 the end-to-end blast6 bytes must equal the host engine's."""
 
@@ -94,3 +94,25 @@ def test_mesh_blast6_byte_parity(small_db):
         stats2 = mesh_search_file(q_fa, db, mesh, lambda *a: None,
                                   fast_emit=em3.emit, window=64, topk=32)
     assert open(small_b6).read() == open(host_b6).read()
+
+
+@pytest.mark.parametrize("n_seqs", [1, 3, 8])
+def test_mesh_ucounter_pads_odd_batches(small_db, n_seqs):
+    """cluster_mt's sharded U counting pads a query batch to the "data"
+    axis and returns exactly the rows asked for, equal to one device."""
+    db_fa, q_fa, _d = small_db
+    parse_argv(["-cluster_mt", q_fa, "-id", "0.9", "-quiet"])
+    from usearch12_tpu.io.seqdb import SeqDB
+    from usearch12_tpu.index.udb import UDBIndex
+    from usearch12_tpu.parallel.cluster_batch import DeviceUCounter
+    db = SeqDB.from_fastx(db_fa)
+    index = UDBIndex.from_seqdb(db)
+    index._flatten()
+    seqs = SeqDB.from_fastx(q_fa).seqs[:n_seqs]
+    counts = []
+    for mesh in (_mesh(), None):
+        c = DeviceUCounter(mesh)
+        c.refresh(index)
+        counts.append(c.count(index, seqs))
+    assert counts[0].shape == (n_seqs, index.seq_count)
+    assert np.array_equal(counts[0], counts[1])

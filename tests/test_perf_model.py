@@ -1,8 +1,8 @@
 """DevicePerfModel: the self-tuning host-vs-device dispatch gate must
-converge out of a polluted state within a few observations, calibrate
-itself with a one-shot probe, and retire constants learned under a
-previous kernel architecture (VERDICT r3 item 1: the gate must reach
-device-wins without hand-forcing)."""
+converge out of a polluted state within a few observations, start with
+no device prediction and calibrate itself with probes, and retire
+constants learned under another kernel architecture or on another
+device kind (the gate must reach device-wins without hand-forcing)."""
 
 import json
 
@@ -15,26 +15,30 @@ from usearch12_tpu.engine.batch import MODEL_VERSION, DevicePerfModel
 def model(tmp_path, monkeypatch):
     monkeypatch.setattr(DevicePerfModel, "CACHE",
                         str(tmp_path / "perf.json"))
-    return DevicePerfModel("testplat")
+    return DevicePerfModel("testplat", "kindA")
 
 
 def test_versioned_cache_key_retires_stale_constants(tmp_path,
                                                      monkeypatch):
     cache = tmp_path / "perf.json"
-    # constants learned under the old kernel architecture (v1-era
-    # pointer-chase pollution: rtt 10.7s, dn_bw 56KB/s)
-    cache.write_text(json.dumps({"testplat": {
-        "host_rate": 2.4e7, "rtt": 10.7, "up_bw": 2.3e5,
-        "dn_bw": 5.6e4, "dev_rate": 1.4e8, "warm_tax": 71.0}}))
+    # constants learned under an old kernel architecture (unversioned
+    # key) and on another device kind (current version)
+    stale = {"host_rate": 2.4e7, "rtt": 10.7, "up_bw": 2.3e5,
+             "dn_bw": 5.6e4, "dev_rate": 1.4e8, "warm_tax": 71.0,
+             "n_obs": 9}
+    cache.write_text(json.dumps({
+        "testplat": stale, f"testplat/kindB/v{MODEL_VERSION}": stale}))
     monkeypatch.setattr(DevicePerfModel, "CACHE", str(cache))
-    m = DevicePerfModel("testplat")
-    # the unversioned v1 entry must NOT be loaded
-    assert m.rtt < 1.0 and m.dn_bw > 1e6
-    assert m.platform == f"testplat/v{MODEL_VERSION}"
+    m = DevicePerfModel("testplat", "kindA")
+    # neither entry is loaded: the device terms stay unknown
+    assert m.rtt < 1.0 and m.dn_bw > 1e6 and m.n_obs == 0
+    assert not m.device_wins(10 ** 9, 0, 0, dispatches_left=1)
+    assert m.key == f"testplat/kindA/v{MODEL_VERSION}"
     m.save()
     d = json.loads(cache.read_text())
-    assert f"testplat/v{MODEL_VERSION}" in d
-    assert "n_obs" in d[f"testplat/v{MODEL_VERSION}"]
+    assert f"testplat/kindA/v{MODEL_VERSION}" in d
+    assert "n_obs" in d[f"testplat/kindA/v{MODEL_VERSION}"]
+    assert DevicePerfModel("testplat", "kindB").n_obs == 9
 
 
 def test_geometric_correction_converges_fast(model):
@@ -44,6 +48,7 @@ def test_geometric_correction_converges_fast(model):
     m = model
     m.rtt, m.up_bw, m.dn_bw, m.dev_rate = 10.7, 2.3e5, 5.6e4, 1.4e8
     m.host_rate = 2.4e7
+    m.n_obs = 2     # learned (if wrongly), so the model predicts
     m.warm = True   # past the first-dispatch warm-tax branch
     cells, up, dn = 59_000_000, 3_000_000, 750_000
     flipped_at = None
@@ -68,8 +73,11 @@ def test_probe_fires_once_and_only_on_big_workloads(model):
     assert not m.should_probe(small)
     assert m.should_probe(big)
     assert not m.should_probe(big)   # one-shot per process
+    # an observation re-arms the probe until two steady ones exist
+    m.observe_dev(big, 1000, 1000, secs=1.0)
+    assert m.n_obs == 1 and m.should_probe(big)
     # once >=2 steady observations exist, no probing even fresh
-    m2 = DevicePerfModel("testplat")
+    m2 = DevicePerfModel("testplat", "kindA")
     m2.n_obs = 2
     assert not m2.should_probe(big)
 
@@ -80,5 +88,7 @@ def test_observe_counts_persist(model):
     m.observe_dev(1_000_000, 1000, 1000, secs=0.01)
     m.observe_dev(1_000_000, 1000, 1000, secs=0.01)
     m.save()
-    m2 = DevicePerfModel("testplat")
+    m2 = DevicePerfModel("testplat", "kindA")
     assert m2.n_obs == 2
+    # the first steady observation set the rate from the wall time
+    assert m2.dev_rate == pytest.approx(1e8)

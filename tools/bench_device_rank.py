@@ -1,13 +1,14 @@
-"""Device CSR ranking vs the host C ranker on a big DB (VERDICT r3
-item 5).
+"""Device CSR ranking vs the host C ranker on a large DB.
 
-Builds a >=100k-target nucleotide DB, ranks the same query window with
-the host ranker (rank_batch_c: dense SetTopBump scan / big-mode touched
-list, usearch_engine.c) and the device CSR ranker (ops/csr_rank.py:
-gather + sort + run-length scans + top-K), asserts the candidate
-prefixes are IDENTICAL per query, and reports paired wall times.
+Builds a 90k-target nucleotide DB (below -big 100000: the device ranker
+implements the non-big semantics, ROADMAP R3), ranks the same query
+window with the host ranker (rank_batch_c: dense SetTopBump scan,
+usearch_engine.c) and the device CSR ranker (ops/csr_rank.py: gather +
+radix histogram + prefix scans + top-K), asserts the candidate prefixes
+are IDENTICAL per query, and reports paired wall times.
 
-Prints one JSON line; run by bench.py in a killable subprocess.
+Prints one JSON line.  Run it alone on the card: python
+tools/bench_device_rank.py
 """
 
 import json
@@ -21,12 +22,9 @@ sys.path.insert(0, HERE)
 import numpy as np
 
 
-def main(n_targets=150000, n_queries=2048, length=250):
-    import jax
-    jax.config.update("jax_compilation_cache_dir",
-                      "/tmp/usearch_jax_cache_tpu")
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+def main(n_targets=90000, n_queries=2048, length=250):
+    from usearch12_tpu import device
+    device.enable_compile_cache()
     from usearch12_tpu.cli import parse_argv
     parse_argv(["-usearch_global", "/dev/null", "-db", "/dev/null",
                 "-id", "0.9", "-strand", "plus", "-quiet"])

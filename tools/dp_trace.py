@@ -11,12 +11,13 @@ framework's three implementations of the banded affine-gap global DP:
     traceback matrix is read back from the caller-owned workspace and
     diffed bit-for-bit against the oracle — including the
     band-relative storage layout,
-  * the Pallas wavefront kernel (ops/wavefront_nw.py), compared at
-    the (score, path) level, with the first differing path op located.
+  * the device DP (ops/wavefront_nw.py: the CUDA kernels on the GPU,
+    the lax formulation elsewhere), compared at the (score, path) level,
+    with the first differing path op located.
 
 Usage:
   python -m tools.dp_trace --a ACGT... --b ACGT... [--band 16]
-      [--amino] [--out trace.tsv] [--cmp c,pallas] [--device]
+      [--amino] [--out trace.tsv] [--cmp c,device]
 
 With --out, writes one TSV row per in-band cell:
   i  j  M  D  I  bits
@@ -193,15 +194,11 @@ def run_c_kernel(a: np.ndarray, b: np.ndarray, dlo: int, dhi: int,
     return float(score.value), path, tb_at
 
 
-def run_pallas(a: np.ndarray, b: np.ndarray, band_radius: int,
-               ap: AlnParams, device: bool):
-    """(score, path) from the wavefront kernel (interpret mode unless
-    --device)."""
-    from usearch12_tpu.ops.wavefront_nw import (FusedWaveAligner,
-                                                WavefrontNWDevice)
-    dev = WavefrontNWDevice(ap, interpret=not device)
-    fa = FusedWaveAligner(dev)
-    scores, paths = fa.align([(a, b)], band_radius, nucleo=ap.nucleo)
+def run_device(a: np.ndarray, b: np.ndarray, band_radius: int,
+               ap: AlnParams):
+    """(score, path) from the device DP (JAX's default backend)."""
+    from usearch12_tpu.ops.wavefront_nw import WaveAligner
+    scores, paths = WaveAligner(ap).align([(a, b)], band_radius)
     return float(scores[0]), paths[0]
 
 
@@ -224,10 +221,7 @@ def main(argv=None) -> int:
     pa.add_argument("--out", help="write per-cell TSV trace here")
     pa.add_argument("--cmp", default="c",
                     help="comma list of kernels to diff vs the oracle: "
-                         "c, pallas, none (default c)")
-    pa.add_argument("--device", action="store_true",
-                    help="run the pallas comparison on the real chip "
-                         "instead of interpret mode")
+                         "c, device, none (default c)")
     args = pa.parse_args(argv)
 
     a = np.frombuffer(args.a.upper().encode(), np.uint8).copy()
@@ -278,17 +272,17 @@ def main(argv=None) -> int:
             ok = False
         else:
             print("C kernel: traceback matrix, score and path all agree")
-    if "pallas" in todo:
-        p_score, p_path = run_pallas(a, b, args.band, ap, args.device)
+    if "device" in todo:
+        p_score, p_path = run_device(a, b, args.band, ap)
         if (p_score, p_path) != (score, path):
             k = _first_path_diff(path, p_path or "")
-            print(f"PALLAS DIVERGES: score {p_score} vs {score}; first "
+            print(f"DEVICE DIVERGES: score {p_score} vs {score}; first "
                   f"path diff at op {k} "
                   f"(oracle ...{path[max(0, (k or 0)-5):(k or 0)+5]}... vs "
-                  f"pallas ...{(p_path or '')[max(0, (k or 0)-5):(k or 0)+5]}...)")
+                  f"device ...{(p_path or '')[max(0, (k or 0)-5):(k or 0)+5]}...)")
             ok = False
         else:
-            print("pallas kernel: score and path agree")
+            print("device DP: score and path agree")
     return 0 if ok else 1
 
 

@@ -11,8 +11,9 @@ src/viterbifastmem.cpp:9-170, src/tracebackbitmem.cpp:8-73), including:
 All arithmetic is float32 in the same per-cell order as the reference, so
 scores and tracebacks agree bit-for-bit.
 
-This oracle is the ground truth for the Pallas TPU kernel and the C host
-kernel; it is intentionally simple, not fast.
+This oracle is the ground truth for the device DP (ops/wavefront_nw.py,
+ops/cuda/wave_fwd.cu) and the C host kernel; it is intentionally simple,
+not fast.
 """
 
 from __future__ import annotations

@@ -14,7 +14,7 @@ src/findgene.cpp):
   - both strands plus an origin-crossing "circular" segment
     (src/genefinder.cpp:101-121 MakeCirc)
 
-TPU note: the genome-scale hot loop — word extraction, bitvec gather and
+Device note: the genome-scale hot loop — word extraction, bitvec gather and
 windowed counting — is expressed as flat numpy array ops (rolling 2-bit
 encode, gather, prefix-sum difference), the same dataflow the device
 kernel uses; motif scanning vectorizes over window offsets.

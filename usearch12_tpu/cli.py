@@ -107,12 +107,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         t0 = _time.time()
 
     # -xprof DIR: JAX profiler trace around the whole command (SURVEY
-    # §5.1 — the TPU-native replacement for the reference's TRACE dumps
+    # §5.1 — the device-side counterpart of the reference's TRACE dumps
     # and mymutex profiler); view with xprof/tensorboard.
     xprof = options().str("xprof") if options().filled("xprof") else None
     if xprof:
-        from .device import ensure_device_runtime
-        ensure_device_runtime()
         import jax
         jax.profiler.start_trace(xprof)
     try:

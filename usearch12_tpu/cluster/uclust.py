@@ -6,7 +6,7 @@ src/clustersink.cpp:306-359, src/outputuc.cpp, src/makeclustersearcher.cpp):
   growing UDB (top hit joins the cluster, miss becomes a new centroid) ->
   UC / centroids / clusters outputs.
 
-TPU note: the greedy loop is sequential by construction (query i's target
+Device note: the greedy loop is sequential by construction (query i's target
 set includes centroids admitted by queries < i).  The batch-synchronous
 device schedule (cluster_mt's pending scheme, src/clustermt.cpp:46-123)
 lives in parallel/cluster_batch.py; this module is the exact host path.
@@ -373,7 +373,7 @@ def cluster_mt(input_path: Optional[str]) -> None:
     Queries stream against the frozen centroid set; misses buffer as
     "pending" until maxpending (128), then are re-searched serially with
     admissions applied in order.  This is the schedule that makes greedy
-    clustering batchable on TPU: the search phase is embarrassingly
+    clustering batchable on a device: the search phase is embarrassingly
     parallel over the pending window, admissions are serialized."""
     o = options()
     if not o.filled("id"):

@@ -15,8 +15,8 @@ Pipeline parity with the reference:
     MOD_perfect_chimera -> admitted to the search DB but flagged chimeric
     and excluded from -otus output)
 
-TPU note: the per-query global alignments run through the shared native /
-Pallas banded-NW path (align_one below); the star-MSA segmenting DP is a
+Device note: the per-query global alignments run through the shared
+native banded-NW path (align_one below); the star-MSA segmenting DP is a
 tiny dense problem (<=100 candidates x ~500 columns) kept on host.
 """
 

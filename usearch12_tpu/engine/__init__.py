@@ -1,4 +1,4 @@
-"""Window-batched search engine (TPU-first production path).
+"""Window-batched search engine (the production usearch_global path).
 
 The serial reference loop (src/search.cpp:51-87) becomes: rank a window
 of queries at once, HSP-chain the next candidate of every live query,

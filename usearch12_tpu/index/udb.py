@@ -1,6 +1,6 @@
 """UDB k-mer inverted index.
 
-TPU-first redesign of the reference's UDBData (src/udbdata.{h,cpp},
+Redesign of the reference's UDBData (src/udbdata.{h,cpp},
 src/udbparams.{h,cpp}): instead of 4^w growable pointer rows, postings live
 in flat CSR-style numpy arrays that upload directly as device buffers for
 the word-counting kernel.  Incremental append (clustering grows the index,

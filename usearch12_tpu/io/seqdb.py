@@ -2,7 +2,7 @@
 
 Stores label / seq (np.uint8 ASCII) / optional qual per record, with helpers
 for nt/aa typing, masking, size= annotations, and packing into fixed-shape
-padded device batches (the TPU-side representation).
+padded device batches.
 """
 
 from __future__ import annotations
@@ -309,7 +309,7 @@ class SeqDB:
     def pack_padded(self, indices=None, pad_to: Optional[int] = None,
                     multiple: int = 128):
         """Pack sequences into a (N, Lpad) uint8 array + lengths vector.
-        Pads with 0 and rounds Lpad up to `multiple` for TPU lane alignment."""
+        Pads with 0 and rounds Lpad up to `multiple`."""
         if indices is None:
             indices = range(len(self))
         seqs = [self.seqs[i] for i in indices]

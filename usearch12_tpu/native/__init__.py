@@ -738,3 +738,24 @@ def path_stats(path_b: bytes, q: np.ndarray, t: np.ndarray,
     if rc != 0:
         raise AssertionError("path with no M columns")
     return out
+
+
+def nw_band(a: np.ndarray, b: np.ndarray, dlo: int, dhi: int, ap):
+    """Host banded DP (C nw_band, the kernel the engine runs on the
+    host) of uint8 letters a, b over diagonals [dlo, dhi]: (score,
+    path)."""
+    lib = get_lib()
+    la, lb = len(a), len(b)
+    tb = np.zeros((la + 1) * (lb + 1), np.uint8)
+    mrow = np.zeros(lb + 2, np.float32)
+    drow = np.zeros(lb + 1, np.float32)
+    path = ctypes.create_string_buffer(la + lb + 2)
+    score = ctypes.c_float(0)
+    n = lib.nw_band(np.ascontiguousarray(a, np.uint8), la,
+                    np.ascontiguousarray(b, np.uint8), lb, dlo, dhi,
+                    ctypes.byref(GapParams.from_alnparams(ap)),
+                    np.ascontiguousarray(ap.subst_mx, np.float32), tb,
+                    mrow, drow, path, ctypes.byref(score))
+    if n <= 0:
+        raise RuntimeError("nw_band failed")
+    return score.value, path.raw[:n].decode("ascii")

@@ -2,7 +2,7 @@
  *
  * The reference engine is a lazy per-query loop (src/search.cpp:51-87,
  * src/udbusortedsearcher.cpp:122-152): rank candidates, align one at a
- * time, stop at maxaccepts/maxrejects.  The TPU-first formulation keeps
+ * time, stop at maxaccepts/maxrejects.  The batched formulation keeps
  * those exact semantics but restructures the work into window-sized
  * batches so the DP can run on the device in large dispatches:
  *

@@ -1,13 +1,13 @@
 """Batch-synchronous greedy clustering with device-resident U counting.
 
-The TPU formulation of cluster_mt (src/clustermt.cpp:46-123): queries
+The device formulation of cluster_mt (src/clustermt.cpp:46-123): queries
 stream against a FROZEN centroid set; misses buffer as pending; at the
 flush the misses are re-searched serially with admissions applied in
 input order — the schedule that reconciles greedy-order semantics with
 batch parallelism (SURVEY §2.2).
 
 Between flushes the centroid set (and hence the UDB) is immutable, so the
-hot USORT word-count scatter-add becomes one dense MXU matmul per query
+hot USORT word-count scatter-add becomes one dense int8 matmul per query
 window: U = Q_onehot @ W_incidence, optionally sharded over a device mesh
 ("data" x "db", jax.sharding + shard_map with an all_gather merge —
 see parallel/search_step.py).  The full U rows come back to the host,
@@ -41,8 +41,8 @@ from ..cluster.uclust import _uc_hit_line
 
 
 class DeviceUCounter:
-    """U counting for a query window vs a frozen index: one int8 MXU
-    matmul (optionally sharded over a mesh's "db" axis).
+    """U counting for a query window vs a frozen index: one int8 matmul
+    with int32 accumulation (optionally sharded over a mesh's "db" axis).
 
     Admissions between flushes append COLUMNS in place: the incidence is
     int8 with geometric capacity and new centroid columns are written
@@ -148,7 +148,11 @@ class DeviceUCounter:
         if self._t == 0:
             return np.zeros((len(seqs), 0), np.uint32)
         v = index.params.slot_count
-        q = np.zeros((len(seqs), v), np.int8)
+        rows = len(seqs)
+        if self.mesh is not None:
+            # the "data" axis shards rows: pad with empty queries
+            rows += (-rows) % self.mesh.shape["data"]
+        q = np.zeros((rows, v), np.int8)
         for b, s in enumerate(seqs):
             q[b, index.params.unique_words(s)] = 1
         if self.mesh is not None:
@@ -160,7 +164,7 @@ class DeviceUCounter:
             qd = jnp.asarray(q)
         u = np.asarray(jnp.dot(qd, self._mat,
                                preferred_element_type=jnp.int32))
-        return u[:, :self._t].astype(np.uint32)
+        return u[:len(seqs), :self._t].astype(np.uint32)
 
 
 def _rank_from_u(u: np.ndarray):
@@ -182,8 +186,6 @@ def _rank_from_u(u: np.ndarray):
 def cluster_mt_batched(input_path: Optional[str], mesh=None) -> None:
     """cluster_mt with the U-counting phase on device (single chip or a
     sharded mesh).  Byte-identical outputs to cluster.uclust.cluster_mt."""
-    from ..device import ensure_device_runtime
-    ensure_device_runtime()
     o = options()
     if not o.filled("id"):
         raise SystemExit("Must set -id")

@@ -4,9 +4,10 @@ The multi-chip formulation of the USORT search (SURVEY.md §2.2/§5.8):
 
   mesh axes: "data" (query batch) x "db" (target shard)
   - query one-hots Q (B, V) sharded over "data"
-  - UDB incidence W (V, T) sharded over "db" (int8: the dense-MXU
-    formulation of SetU; per-chip HBM holds T/n_db columns)
-  - per-shard U = Q @ W on the MXU, per-shard lax.top_k (count desc,
+  - UDB incidence W (V, T) sharded over "db" (int8: the dense-matmul
+    formulation of SetU; each device holds T/n_db columns)
+  - per-shard U = Q @ W (int8, int32 accumulation), per-shard lax.top_k
+    (count desc,
     local index asc), all_gather over "db", then ONE lexicographic
     lax.sort with integer keys (-count, global index) — the exact
     stable count-sort order (src/countsort.h:49, lowest-target-first
@@ -116,7 +117,7 @@ class MeshRanker:
             return jnp.maximum(exc, carry[:, None])
 
         def local_step(q_onehot, w):
-            # per-shard counting on the MXU; counts fit int32 exactly
+            # per-shard counting; counts fit int32 exactly
             u = jnp.dot(q_onehot.astype(jnp.int8), w,
                         preferred_element_type=jnp.int32)
             t_shard = u.shape[1]
@@ -264,8 +265,6 @@ def mesh_search_file(query_path: str, db: SeqDB, mesh,
                      topk: int = 64, window: int = 4096) -> dict:
     """usearch_global with mesh-sharded ranking + engine alignment.
     Returns stats {queries, fallbacks}."""
-    from ..device import ensure_device_runtime
-    ensure_device_runtime()
     from ..engine.batch import BatchEngine
     eng = BatchEngine("usearch_global", db, index=index)
     ranker = MeshRanker(mesh, eng.index, topk=topk)

@@ -1,15 +1,15 @@
 """Multi-host scaffolding: jax.distributed init + host-sharded search.
 
 The reference is strictly single-process (SURVEY.md §2.2); this module
-is the DCN story of the TPU-native rebuild:
+spreads one search over several hosts:
 
   - `init_multihost()` wires `jax.distributed.initialize` from either
     explicit arguments or the standard env vars, giving every process a
     view of the GLOBAL device set.
   - Meshes are laid out host-major: the "db" (posting-shard) axis maps
-    to devices within a host (collectives ride ICI), while the "data"
-    (query-batch) axis spans hosts (only all_gathers of tiny top-K
-    tuples cross DCN).
+    to devices within a host (collectives stay on the host's NVLink),
+    while the "data" (query-batch) axis spans hosts (only all_gathers of
+    tiny top-K tuples cross the network).
   - `multihost_search()` runs the mesh-sharded ranking step
     (parallel/mesh_search.py) with each host feeding its own query
     slice; per-host outputs concatenate in process order, so the bytes
@@ -35,8 +35,6 @@ def init_multihost(coordinator: Optional[str] = None,
     env vars (JAX_COORDINATOR_ADDRESS, JAX_NUM_PROCESSES,
     JAX_PROCESS_ID); no-op when num_processes <= 1 and no coordinator
     is configured."""
-    from ..device import ensure_device_runtime
-    ensure_device_runtime()
     import jax
     coordinator = coordinator or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None:
@@ -54,8 +52,8 @@ def init_multihost(coordinator: Optional[str] = None,
 
 
 def host_major_mesh(db_per_host: Optional[int] = None):
-    """Mesh(data x db) with the db axis inside each host (ICI) and the
-    data axis across hosts (DCN)."""
+    """Mesh(data x db) with the db axis inside each host and the data
+    axis across hosts."""
     import jax
     from jax.sharding import Mesh
     devs = jax.devices()

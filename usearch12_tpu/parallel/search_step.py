@@ -1,17 +1,18 @@
-"""Sharded search step: the multi-chip TPU formulation of USORT search.
+"""Sharded search step: the multi-device formulation of USORT search.
 
 Layout (scaling-book style):
   mesh axes: "data" (query batch) x "db" (target shard)
   - query word one-hots Q: (B, V) sharded over B on "data"
   - UDB word->target incidence W: (V, T) 0/1, sharded over T on "db"
-    (the dense-MXU formulation of SetU: U = Q @ W counts shared unique
-    words; postings-CSR segment-sum replaces this for very large V*T)
+    (the dense-matmul formulation of SetU: U = Q @ W counts shared unique
+    words, int8 operands with int32 accumulation, so exact; postings-CSR
+    counting replaces this for very large V*T)
   - U: (B, T) sharded (data, db); per-shard top-k then all_gather over
     "db" and a deterministic merge (count desc, global target index asc —
     the reference's stable count-sort order)
   - the top candidate pair is aligned with the banded NW recurrence
-    (jnp formulation of the same rotating-frame kernel math; the Pallas
-    kernel is used on real TPU hardware for the batched path)
+    (a jnp row-frame formulation; the batch engine's device DP is
+    ops/wavefront_nw.py)
 
 This module is exercised by __graft_entry__.dryrun_multichip on a virtual
 device mesh and provides the single-chip jittable entry() step.
@@ -148,14 +149,14 @@ def banded_nw_score_jnp(a_cls, bs_cls, la, lb, dlo, bw, gp, amax: int):
 
 
 def make_search_step(amax: int = 256):
-    """Single-chip jittable search step: word-count (MXU matmul) + top-1
-    candidate + banded NW score of query vs its top target."""
+    """Single-device jittable search step: word-count (int8 matmul) +
+    top-1 candidate + banded NW score of query vs its top target."""
     import jax
     import jax.numpy as jnp
 
     def step(q_onehot, db_mat, a_cls, db_cls, db_len, gp):
-        # U counting on the MXU
-        u = jnp.dot(q_onehot, db_mat, preferred_element_type=jnp.float32)
+        u = jnp.dot(q_onehot.astype(jnp.int8), db_mat.astype(jnp.int8),
+                    preferred_element_type=jnp.int32)
         # deterministic top-1: max count, lowest index on ties
         top = jnp.argmax(u, axis=1).astype(jnp.int32)
         # align each query to its top target (main-diagonal band)
@@ -194,7 +195,8 @@ def make_sharded_search_step(mesh, amax: int = 256):
 
     def local_step(q_onehot, db_mat, a_cls, db_cls, db_len, gp):
         # per-shard counting (B_local, T_shard)
-        u = jnp.dot(q_onehot, db_mat, preferred_element_type=jnp.float32)
+        u = jnp.dot(q_onehot.astype(jnp.int8), db_mat.astype(jnp.int8),
+                    preferred_element_type=jnp.int32)
         t_shard = u.shape[1]
         shard_id = jax.lax.axis_index("db")
         local_top = jnp.argmax(u, axis=1).astype(jnp.int32)
@@ -202,7 +204,8 @@ def make_sharded_search_step(mesh, amax: int = 256):
         # merge across db shards: max count, tie -> lowest global index
         gcnt = jax.lax.all_gather(local_cnt, "db")      # (n_db, B)
         gtop = jax.lax.all_gather(local_top + shard_id * t_shard, "db")
-        order_key = gcnt * jnp.float32(1e9) - gtop.astype(jnp.float32)
+        order_key = (gcnt.astype(jnp.float32) * jnp.float32(1e9)
+                     - gtop.astype(jnp.float32))
         win = jnp.argmax(order_key, axis=0)             # (B,)
         top = jnp.take_along_axis(gtop, win[None, :], axis=0)[0]
         cnt = jnp.take_along_axis(gcnt, win[None, :], axis=0)[0]

@@ -1,29 +1,16 @@
-"""Version-compatible shard_map import.
+"""shard_map with the replication check off.
 
-jax >= 0.8 promotes shard_map to ``jax.shard_map`` and renames the
-``check_rep`` kwarg to ``check_vma``; the experimental module still
-works but emits a DeprecationWarning.  Every shard_map call in this
-package goes through :func:`shard_map_norep`, which disables the
-replication check (our kernels use explicit collectives whose
-replication the checker cannot always prove) under whichever kwarg the
-installed jax expects.
+Every shard_map call in this package goes through :func:`shard_map_norep`:
+our kernels use explicit collectives whose replication the checker cannot
+always prove.
 """
 
 from __future__ import annotations
 
-import inspect
-
-try:
-    from jax import shard_map as _shard_map
-except ImportError:  # pragma: no cover - jax < 0.8
-    from jax.experimental.shard_map import shard_map as _shard_map
-
-_NOREP_KW = ("check_vma"
-             if "check_vma" in inspect.signature(_shard_map).parameters
-             else "check_rep")
+from jax import shard_map
 
 
 def shard_map_norep(fn, mesh, in_specs, out_specs):
-    """shard_map with the replication check disabled, any jax version."""
-    return _shard_map(fn, mesh=mesh, in_specs=in_specs,
-                      out_specs=out_specs, **{_NOREP_KW: False})
+    """jax.shard_map with check_vma=False."""
+    return shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                     check_vma=False)

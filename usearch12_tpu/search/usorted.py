@@ -10,8 +10,8 @@ Reference semantics (src/udbusortedsearcher.cpp):
     scan (src/countsort.cpp:6-108).
   - Candidates aligned in that order until the Terminator fires.
 
-The U computation itself is delegated to UDBIndex (host bincount now,
-device segment-sum kernel on TPU).
+The U computation itself is delegated to UDBIndex (host bincount; the
+device rankers are ops/csr_rank.py and parallel/mesh_search.py).
 """
 
 from __future__ import annotations
